@@ -22,8 +22,7 @@ against a random init:
   both      — relcoord + timediv
 
 Writes benchmarks/transfer_study.json; the md summary is written by hand
-from it. Runtime: ~5-20 min/arm on one v5e chip depending on pool
-contention.
+from it.
 
 Usage: python benchmarks/transfer_study.py [--epochs 40] [--arms base,...]
 """

@@ -1,10 +1,10 @@
-// Native host-side data-pipeline kernels for the TPU framework.
+// Native host-side data-pipeline kernels for the framework.
 //
 // The reference's host-side stages are pure Python (SURVEY.md section 2:
 // zero native components; its heavy lifting leans on scipy's cKDTree and
 // numpy). At production scale — 5 years of hourly ERA5 per region is a
 // ~1 GB [T, N, C] tensor, and a fleet preprocesses dozens of regions —
-// those stages sit on the TPU input critical path. This library provides
+// those stages sit on the device input critical path. This library provides
 // single-pass C++ implementations bound via ctypes (native/__init__.py on
 // the Python side, with numpy fallbacks when the .so is absent):
 //

@@ -1,6 +1,6 @@
 """Minimal in-memory xarray stand-in for testing the ERA5 loader.
 
-The TPU image has no xarray/netCDF4, so tests exercise
+The test machine has no xarray/netCDF4, so tests exercise
 `data/era5.py`'s slicing/merging/concat logic against this fake, which
 implements exactly the subset of the xarray API the loader touches:
 `open_dataset`, `Dataset.sel` (slice over possibly-descending coords),

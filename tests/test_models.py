@@ -203,7 +203,7 @@ def test_wavefront_lstm_matches_layerwise():
     p = init_lstm(jax.random.key(1), 9, 6, 3)
     x = jnp.asarray(np.random.default_rng(1).standard_normal((4, 7, 9)), jnp.float32)
     rng = jax.random.key(2)
-    ref = apply_lstm(p, x, dropout_rate=0.3, train=True, rng=rng, kernel="xla")
+    ref = apply_lstm(p, x, dropout_rate=0.3, train=True, rng=rng)
     got = apply_lstm_wavefront(p, x, dropout_rate=0.3, train=True, rng=rng)
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5)
 
@@ -216,7 +216,7 @@ def test_wavefront_lstm_matches_layerwise():
 
     g = jax.grad(loss_of(apply_lstm_wavefront))(p)
     g_ref = jax.grad(
-        loss_of(lambda *a, **kw: apply_lstm(*a, kernel="xla", **kw))
+        loss_of(apply_lstm)
     )(p)
     for u, v in zip(jax.tree.leaves(g), jax.tree.leaves(g_ref)):
         np.testing.assert_allclose(u, v, rtol=2e-3, atol=1e-5)

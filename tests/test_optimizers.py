@@ -55,18 +55,6 @@ def test_climate_lr_schedule_cosine_and_nudges():
     assert lr6 == pytest.approx(1e-3 * mult)
 
 
-def test_fused_stack_vmem_guard():
-    """Grids whose adjacency exceeds the VMEM budget take the XLA path
-    (shape-only check; would otherwise fail at Mosaic compile on TPU)."""
-    import numpy as np
-
-    from weatherforecast_stgcn_maml_tpu.ops.fused_gcn import _stack_fits_vmem
-
-    w = [np.zeros((24, 256), np.float32)] + [np.zeros((256, 256), np.float32)] * 3
-    assert _stack_fits_vmem(w, 512, 24)
-    assert not _stack_fits_vmem(w, 2048, 24)
-
-
 def test_masked_freeze_zeroes_frozen_updates():
     """Frozen (mask=False) leaves must get EXACTLY zero updates.
 

@@ -364,14 +364,7 @@ def test_chained_meta_step_dp_matches_single_device():
 def test_meta_shardmap_2d_matches_single_device():
     """The shard_map dp x sp meta step (parallel/meta_sp.py) must match the
     single-device step exactly (dropout off: per-shard rng streams are the
-    one permitted divergence). The XLA LSTM route is compared here — the
-    observed losses are BIT-identical; the fused-kernel route cannot run on
-    a CPU mesh (Pallas interpret mode hits a JAX 0.9 lowering bug under
-    manual axes — 'closed_call' KeyError in mlir.py cached lowerings), so
-    kernel-engaged sharding is validated on TPU by
-    benchmarks/shardmap_meta_probe.py instead."""
-    import dataclasses
-
+    one permitted divergence)."""
     from weatherforecast_stgcn_maml_tpu.parallel.mesh import (
         make_mesh_2d,
         shard_task_batch_2d,
@@ -380,7 +373,7 @@ def test_meta_shardmap_2d_matches_single_device():
         make_shardmap_meta_step_2d,
     )
 
-    model_cfg = dataclasses.replace(MODEL_CFG, lstm_kernel="xla")
+    model_cfg = MODEL_CFG
     meta_cfg = MetaConfig(
         meta_batch=4,
         grad_accum=2,
@@ -430,7 +423,7 @@ def test_meta_shardmap_2d_dropout_trains():
     )
 
     model_cfg = dataclasses.replace(
-        MODEL_CFG, lstm_kernel="xla", lstm_layers=2,
+        MODEL_CFG, lstm_layers=2,
         gcn_dropout=0.3, lstm_dropout=0.3,
     )
     meta_cfg = MetaConfig(
@@ -500,7 +493,7 @@ def test_meta_shardmap_2d_nodes_span_shards_f64():
     from weatherforecast_stgcn_maml_tpu.train.optimizers import meta_optimizer
 
     model_cfg = dataclasses.replace(
-        MODEL_CFG, compute_dtype="float64", lstm_kernel="xla",
+        MODEL_CFG, compute_dtype="float64",
         gcn_dropout=0.0, lstm_dropout=0.0,
     )
     meta_cfg = MetaConfig(
@@ -557,18 +550,16 @@ def test_meta_shardmap_2d_nodes_span_shards_f64():
             )
 
 
-@pytest.mark.parametrize("so_impl", ["xla", "fhvp"])
+@pytest.mark.parametrize("so_impl", ["xla", "hvp"])
 def test_meta_shardmap_2d_second_order_f64(so_impl):
     """Second-order MAML on the shard_map dp x sp path must match the
     single-device SO meta step with real nodes spanning both sp shards.
 
     The Hessian transpose runs per shard through so_grad's custom_vjp on
     the node-local losses (jvp of the LOCAL partial gradient, psum-composed
-    at the carry boundary — exact by joint-Hessian symmetry). On CPU/f64
-    the "fhvp" fused route falls back to its hvp semantics inside
-    make_local_grad_loss_fused, so this exercises the custom_vjp wiring and
-    the collective transposes, while kernel-engaged SO sharding is
-    validated on TPU (benchmarks/shardmap_meta_probe.py)."""
+    at the carry boundary — exact by joint-Hessian symmetry). "hvp" runs
+    the custom_vjp wiring and the collective transposes; "xla" the plain
+    linearize-and-transpose."""
     import dataclasses
 
     from weatherforecast_stgcn_maml_tpu.parallel.mesh import (
@@ -582,7 +573,7 @@ def test_meta_shardmap_2d_second_order_f64(so_impl):
     from weatherforecast_stgcn_maml_tpu.train.optimizers import meta_optimizer
 
     model_cfg = dataclasses.replace(
-        MODEL_CFG, compute_dtype="float64", lstm_kernel="xla",
+        MODEL_CFG, compute_dtype="float64",
         gcn_dropout=0.0, lstm_dropout=0.0,
     )
     meta_cfg = MetaConfig(

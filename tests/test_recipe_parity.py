@@ -83,7 +83,7 @@ def test_adaptation_recipe_matches_torch_in_f64():
             hidden_channels=HIDDEN, gcn_layers=GCN_LAYERS,
             lstm_hidden=LSTM_HIDDEN, lstm_layers=LSTM_LAYERS,
             window=WINDOW, horizon=HORIZON, koppen_dim=KOPPEN_DIM,
-            gcn_dropout=0.0, lstm_dropout=0.0, lstm_kernel="xla",
+            gcn_dropout=0.0, lstm_dropout=0.0,
             compute_dtype="float64",
             # Reference recipe: the Koppen embedding is NOT in the
             # adaptation optimizer (quirk 11, adapt_hybrid_v5.py:172) —

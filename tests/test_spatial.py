@@ -161,44 +161,3 @@ def test_distance_weighted_graph():
     x = jnp.zeros((CFG.window, 128, CFG.feature_channels))
     out = apply_hybrid(params, jnp.asarray(g.a_hat), x, jnp.int32(1), CFG)
     assert np.isfinite(np.asarray(out)).all()
-
-
-def test_spatial_paths_pass_lstm_kernel_config(monkeypatch):
-    """The node-sharded paths must forward model_cfg.lstm_kernel to
-    apply_lstm — the scale-out path is exactly where the fused stack kernel
-    is meant to engage per shard (round-3 review finding)."""
-    import dataclasses
-
-    import optax
-
-    from weatherforecast_stgcn_maml_tpu.parallel import spatial as sp
-
-    seen = []
-    real = sp.apply_lstm
-
-    def spy(params, x, **kw):
-        seen.append(kw.get("kernel"))
-        return real(params, x, **kw)
-
-    monkeypatch.setattr(sp, "apply_lstm", spy)
-    cfg = dataclasses.replace(CFG, lstm_kernel="xla")
-    mesh = _mesh()
-    g = build_region_graph(np.arange(5.0), np.arange(6.0), pad_to=128)
-    params = init_hybrid(jax.random.key(2), cfg)
-    x = jnp.asarray(
-        np.random.default_rng(2).normal(size=(cfg.window, 128, cfg.feature_channels)),
-        jnp.float32,
-    )
-    a = jnp.asarray(g.a_hat)
-    fwd = make_spatial_forward(cfg, mesh)
-    fwd(params, a, x, jnp.int32(3))
-
-    step = sp.make_spatial_train_step(cfg, mesh, optax.scale_by_adam())
-    y = jnp.asarray(
-        np.random.default_rng(3).normal(size=(cfg.horizon, 128, 12)), jnp.float32
-    )
-    mask = jnp.ones(128, jnp.float32)
-    opt_state = optax.scale_by_adam().init(params)
-    step(params, opt_state, a, x, y, jnp.int32(3), mask, 1e-3, jax.random.key(0))
-
-    assert seen and all(k == "xla" for k in seen)

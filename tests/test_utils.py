@@ -4,6 +4,7 @@ import json
 import os
 
 import numpy as np
+import pytest
 
 from weatherforecast_stgcn_maml_tpu.config import WEATHER_VARS
 from weatherforecast_stgcn_maml_tpu.data.preprocess import NormStats
@@ -235,7 +236,7 @@ def test_distributed_partial_topology_raises(monkeypatch):
 def test_load_checkpoint_saved_structure_wins_over_template():
     """A checkpoint whose params layout differs from the template (torch-
     imported split LSTM biases vs native fused `b`) must restore the SAVED
-    leaves — orbax partial_restore would silently keep the template's
+    leaves — a template-shaped restore would silently keep the template's
     random-init values for paths missing from the checkpoint, which
     corrupted adaptation-from-imported-weights runs
     (benchmarks/recipe_parity.py)."""
@@ -268,3 +269,144 @@ def test_load_checkpoint_saved_structure_wins_over_template():
     np.testing.assert_array_equal(
         layer0["wx"], params["lstm"]["layers"][0]["wx"]
     )
+
+
+@pytest.mark.parametrize("env_dir", [None, "custom"])
+def test_compile_cache_dir(monkeypatch, tmp_path, env_dir):
+    """JAX_COMPILATION_CACHE_DIR, when set, is left to JAX; otherwise the
+    cache goes to the fixed <repo>/.jax_cache."""
+    import jax
+
+    from weatherforecast_stgcn_maml_tpu.utils import compile_cache
+
+    old = jax.config.jax_compilation_cache_dir
+    sentinel = str(tmp_path / "untouched")
+    jax.config.update("jax_compilation_cache_dir", sentinel)
+    try:
+        if env_dir is None:
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+            got = compile_cache.enable_compile_cache()
+            repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+            assert got == os.path.join(repo, ".jax_cache")
+            assert jax.config.jax_compilation_cache_dir == got
+        else:
+            path = str(tmp_path / env_dir)
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", path)
+            assert compile_cache.enable_compile_cache() == path
+            assert jax.config.jax_compilation_cache_dir == sentinel
+    finally:
+        jax.config.update("jax_compilation_cache_dir", old)
+
+
+def test_checkpoint_roundtrip_keeps_optax_state_types(tmp_path):
+    """npz checkpoints restore optax NamedTuple states through a template;
+    a raw restore gives the same leaves as dicts and lists."""
+    import jax
+
+    from weatherforecast_stgcn_maml_tpu.config import MetaConfig, ModelConfig
+    from weatherforecast_stgcn_maml_tpu.train.maml import init_meta_state
+
+    cfg = ModelConfig(
+        hidden_channels=8, gcn_layers=2, lstm_hidden=6, lstm_layers=2,
+        window=4, horizon=2, koppen_dim=4,
+    )
+    state = init_meta_state(jax.random.key(0), cfg, MetaConfig())
+    tree = {"params": state.params, "opt_state": state.opt_state}
+    path = str(tmp_path / "ckpt")
+    save_checkpoint(path, tree, {"epoch": 1})
+    back, meta = load_checkpoint(path, like=tree)
+    assert meta == {"epoch": 1}
+    assert jax.tree.structure(back) == jax.tree.structure(tree)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    raw, _ = load_checkpoint(path)
+    assert len(jax.tree.leaves(raw)) == len(jax.tree.leaves(tree))
+    assert isinstance(raw["params"]["lstm"]["layers"], list)
+
+
+def test_checkpoint_with_retired_config_keys_loads(tmp_path):
+    """Checkpoints written before the kernel options were removed carry
+    them in meta.json; reading ignores them."""
+    import json as _json
+
+    from weatherforecast_stgcn_maml_tpu.config import (
+        ExperimentConfig,
+        experiment_from_dict,
+        to_dict,
+    )
+
+    config = to_dict(ExperimentConfig())
+    config["model"].update(use_pallas_gcn=True, use_pallas_lstm=False, lstm_kernel="auto")
+    config["meta"].update(fused_inner_update=True)
+    path = str(tmp_path / "old")
+    save_checkpoint(path, {"params": {"w": np.ones(3)}}, {"config": config})
+    with open(os.path.join(path, "meta.json")) as f:
+        assert _json.load(f)["config"]["model"]["lstm_kernel"] == "auto"
+    arrays, meta = load_checkpoint(path, like={"params": {"w": np.zeros(3)}})
+    np.testing.assert_array_equal(arrays["params"]["w"], np.ones(3))
+    assert experiment_from_dict(meta["config"]) == ExperimentConfig()
+
+
+@pytest.mark.parametrize(
+    "argv,flag",
+    [
+        (["validate", "--region", "Moscow"], "--no-plots"),
+        (["pipeline"], "--no-plots"),
+        (["forecast", "--region", "Moscow", "--plots"], "no --plots"),
+    ],
+)
+def test_plots_without_matplotlib_fail_before_any_work(monkeypatch, argv, flag):
+    import importlib.util
+
+    from weatherforecast_stgcn_maml_tpu import cli
+
+    real = importlib.util.find_spec
+    monkeypatch.setattr(
+        importlib.util, "find_spec",
+        lambda name, *a: None if name == "matplotlib" else real(name, *a),
+    )
+    with pytest.raises(SystemExit, match=flag):
+        cli.main(argv + ["-o", "out_dir=/nonexistent-never-written"])
+
+
+def test_summarize_trace_attributes_scopes():
+    """Busy time is the union of kernel intervals; a kernel's scope comes
+    from the op_name that its hlo_op maps to."""
+    from jax.profiler import ProfileData
+
+    from weatherforecast_stgcn_maml_tpu.utils.profiling import (
+        hlo_op_names,
+        summarize_trace,
+    )
+
+    def ev(meta, start_us, dur_us, op):
+        return (
+            f"events {{ metadata_id: {meta} offset_ps: {start_us * 1000000} "
+            f"duration_ps: {dur_us * 1000000} stats {{ metadata_id: 9 str_value: \"{op}\" }} }}"
+        )
+
+    proto = f"""
+    planes {{ id: 1 name: "/device:GPU:0"
+      lines {{ id: 1 name: "Stream #13(Compute)" timestamp_ns: 0
+        {ev(1, 0, 10, "fusion.1")} {ev(2, 5, 10, "custom-call.2")} {ev(1, 40, 10, "fusion.3")}
+      }}
+      event_metadata {{ key: 1 value {{ id: 1 name: "loop_fusion" }} }}
+      event_metadata {{ key: 2 value {{ id: 2 name: "sm90_gemm" }} }}
+      stat_metadata {{ key: 9 value {{ id: 9 name: "hlo_op" }} }}
+    }}
+    planes {{ id: 2 name: "/host:CPU" }}
+    """
+    hlo = (
+        '%fusion.1 = f32[4] fusion(%p), metadata={op_name="jit(s)/jvp(lstm)/mul"}\n'
+        '%custom-call.2 = f32[4] custom-call(%p), '
+        'metadata={op_name="jit(s)/transpose(jvp(gcn_encoder))/dot_general"}\n'
+    )
+    names = hlo_op_names(hlo)
+    assert names["custom-call.2"].endswith("gcn_encoder))/dot_general")
+    s = summarize_trace(ProfileData.from_text_proto(proto), names)
+    assert s["window_ns"] == 50_000 and s["busy_ns"] == 25_000
+    assert s["kernels"] == 3 and s["kernel_ns"] == 30_000
+    assert s["scopes_ns"] == {
+        "gcn_encoder": 10_000, "lstm": 10_000, "inner_update": 0, "unattributed": 10_000,
+    }
+    assert s["top_kernels_ns"] == {"loop_fusion": 20_000, "sm90_gemm": 10_000}

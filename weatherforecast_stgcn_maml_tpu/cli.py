@@ -84,7 +84,7 @@ def _json_safe(obj):
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="wfstgcn", description="TPU-native MAML-STGCN-LSTM weather forecasting"
+        prog="wfstgcn", description="MAML-STGCN-LSTM weather forecasting in JAX"
     )
     sub = p.add_subparsers(dest="command", required=True)
 
@@ -119,7 +119,12 @@ def build_parser() -> argparse.ArgumentParser:
         "--regions",
         help="subset of region names, ';'-separated (names may contain commas)",
     )
-    pl.add_argument("--shard", type=int, default=None, help="this host's shard id")
+    pl.add_argument(
+        "--shard", type=int, default=None,
+        help="this process's shard id. Run one process per GPU: several "
+        "shards on one machine each need CUDA_VISIBLE_DEVICES=<shard>, "
+        "because a JAX process reserves most of every GPU it sees",
+    )
     pl.add_argument("--num-shards", type=int, default=None)
     pl.add_argument("--no-plots", action="store_true")
     pl.add_argument(
@@ -220,6 +225,17 @@ def main(argv=None) -> int:
         cfg = apply_overrides(ExperimentConfig(), args.override)
     except (ValueError, AttributeError, TypeError) as e:
         raise SystemExit(f"bad -o override: {e}") from e
+
+    from weatherforecast_stgcn_maml_tpu.eval.plots import require_matplotlib
+    from weatherforecast_stgcn_maml_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    if args.command in ("validate", "pipeline") and not args.no_plots:
+        require_matplotlib("--no-plots")
+    if args.command == "forecast" and args.plots:
+        require_matplotlib("no --plots")
+    enable_compile_cache()
 
     if args.command == "info":
         import jax

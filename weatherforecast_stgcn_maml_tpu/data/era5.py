@@ -8,7 +8,7 @@ validate_hybrid_v5.py:137-159 for the 2025 validation quarter), redesigned:
   * the output is a plain numpy `RegionData` (stream merge, descending-coord
     and 0-360 longitude handling preserved);
   * each region is cached once as a compressed NPZ so repeat runs (and the
-    TPU input pipeline) never reopen the 40 source NetCDF files;
+    device input pipeline) never reopen the 40 source NetCDF files;
   * missing files are skipped (adaptation semantics) or raised (training
     semantics) per the `strict` flag.
 
@@ -152,7 +152,7 @@ def load_region_cached(
     tag: str = "",
     name: str = "",
 ) -> RegionData:
-    """Load a region through the NPZ cache (the TPU-friendly equivalent of
+    """Load a region through the NPZ cache (the equivalent of
     the reference's single-file `.nc` cache, train_hybrid_maml_v5.py:76-84)."""
     os.makedirs(cfg.cache_dir, exist_ok=True)
     # The key must encode WHAT was cached, not just which pipeline stage

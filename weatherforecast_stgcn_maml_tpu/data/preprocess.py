@@ -1,6 +1,6 @@
 """Feature assembly: RegionData -> model-ready [T, N, C] tensor + stats.
 
-TPU-native counterpart of `prepare_model_input` (featurePreprocessor.py:67-184)
+JAX-side counterpart of `prepare_model_input` (featurePreprocessor.py:67-184)
 with two deliberate design changes documented in SURVEY.md:
 
   * The Koppen embedding is NOT baked into the features. The reference

@@ -5,7 +5,7 @@ model only ever consumes 12 gridded surface variables plus coordinates
 (featurePreprocessor.py:84-122), we use a plain numpy container that any
 backend (ERA5 NetCDF via xarray, NPZ cache, synthetic generator) can produce.
 This removes the hard xarray dependency from the compute path — important
-because the TPU image may not ship netCDF at all.
+because a compute machine may not ship netCDF at all.
 """
 
 from __future__ import annotations

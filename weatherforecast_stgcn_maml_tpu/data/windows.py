@@ -2,8 +2,8 @@
 
 The reference materializes every (window, horizon) sample on the host through
 a torch Dataset + PyG DataLoader (dataset.py:30-54), shipping each sample to
-the device one batch (of one!) at a time. On TPU we instead keep the whole
-region feature tensor [T, N, C] resident in HBM and gather windows *inside*
+the device one batch (of one!) at a time. Here we instead keep the whole
+region feature tensor [T, N, C] resident in device memory and gather windows *inside*
 jit with `lax.dynamic_slice`, so training loops never touch the host.
 
 Sample semantics (matching dataset.py):

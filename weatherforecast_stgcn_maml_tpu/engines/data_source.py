@@ -3,8 +3,8 @@
 The reference hardwires a local ERA5 mirror (dataLoader.py:7). Here the data
 backend is chosen by configuration: a real ERA5 root (NetCDF via the gated
 xarray loader, NPZ-cached) or the deterministic synthetic generator — so
-every engine runs end-to-end on any machine, including netCDF-less TPU
-images and CI.
+every engine runs end-to-end on any machine, including netCDF-less machines
+and CI.
 """
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 
 Device-level parallelization of the reference's serial 18-region loop
 (main.py:30-69): regions are stacked on a leading axis and sharded over the
-device mesh (parallel/fleet_mesh.py), so a v5e-8 adapts 8 regions in the
-wall-clock of one. Semantics match `engines/adapt.py` exactly — same
+device mesh (parallel/fleet_mesh.py), so an 8-device mesh adapts 8 regions
+at once. Semantics match `engines/adapt.py` exactly — same
 climate optimizer/schedule, same contiguous split, same compat flags, same
 checkpoint schema — verified by a numerical-equivalence test against the
 serial engine (tests/test_fleet_mesh.py).
@@ -13,10 +13,8 @@ is baked into the optax chain (train/optimizers.py), so each zone's group
 shares one `tx` while the per-region learning rate (which diverges across
 regions after epoch 3 via the loss-based nudges) rides a traced [R] vector.
 
-On ONE chip the fleet is ~1.35x slower per region than the serial engine
-(the stacked lanes widen the batch into the HBM-bound regime —
-benchmarks/scaling_study.md); use it on a multi-chip slice, where lanes
-are device-local and the speedup is ~mesh_size/1.35x.
+On ONE device the stacked lanes only widen the batch; the fleet is meant
+for a mesh, where each lane is device-local.
 
 Limitations vs the serial engine: all regions in a group must share the
 feature length T and padded node count (true for the synthetic backend and
@@ -259,7 +257,7 @@ def _run_zone_group(cfg, group, zone, meta_params, spec, mesh, meta_ckpt, log_cb
             {"params": params_i},
             {
                 "schema": "wfstgcn-adapted-v1",
-                "model_version": "tpu-1.0",
+                "model_version": "jax-1.0",
                 "region": list(box),
                 "region_name": name,
                 "climate_zone": zone,

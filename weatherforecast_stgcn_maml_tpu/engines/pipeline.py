@@ -1,4 +1,4 @@
-"""Multi-region pipeline driver — the TPU-native main.py.
+"""Multi-region pipeline driver — the JAX counterpart of main.py.
 
 Workflow parity (main.py:30-69): for each named region, adapt the meta-
 trained model if no adapted checkpoint exists yet, then validate; each

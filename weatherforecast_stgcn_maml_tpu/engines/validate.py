@@ -1,4 +1,4 @@
-"""Validation engine — the TPU-native validate_hybrid_v5.py.
+"""Validation engine — the JAX counterpart of validate_hybrid_v5.py.
 
 Workflow parity (validate_hybrid_v5.py:113-371): load the adapted checkpoint
 (falling back to the meta-trained base), load held-out validation-year data,

@@ -6,11 +6,20 @@ variables over forecast steps. matplotlib is imported lazily (optional dep).
 
 from __future__ import annotations
 
+import importlib.util
 import os
 
 import numpy as np
 
 from weatherforecast_stgcn_maml_tpu.config import WEATHER_VARS
+
+
+def require_matplotlib(flag: str) -> None:
+    """Fail before any work when plots are asked for and cannot be drawn."""
+    if importlib.util.find_spec("matplotlib") is None:
+        raise SystemExit(
+            f"plots need matplotlib, which is not installed; pass {flag}"
+        )
 
 
 def _plt():

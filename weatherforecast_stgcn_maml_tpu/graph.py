@@ -1,11 +1,10 @@
 """Spatial graph construction as a dense normalized adjacency.
 
 The reference builds a directed kNN edge list for PyTorch-Geometric's sparse
-scatter/gather GCNConv (graphBuilder.py:9-47). On TPU the graphs are tiny
-(~441 nodes for a 5-degree box at 0.25 degrees) and static per region, so the
-idiomatic design is a precomputed **dense** GCN-normalized adjacency matrix:
-graph convolution then is a single MXU matmul that XLA can fuse with the
-feature transform (and that we can hand-fuse in Pallas, see ops/fused_gcn.py).
+scatter/gather GCNConv (graphBuilder.py:9-47). The graphs here are small
+(~441 nodes for a 5-degree box at 0.25 degrees) and static per region, so
+the design is a precomputed **dense** GCN-normalized adjacency matrix: graph
+convolution then is a single matmul next to the feature transform.
 
 Node counts are padded to a lane-aligned size so every region shares one
 compiled program shape under vmap/pjit; padding nodes are isolated (zero
@@ -18,7 +17,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-LANE = 128  # TPU lane width; last-dim tile size for fp32/bf16
+LANE = 128  # node-count padding multiple; part of the workload's shapes
 
 
 def round_up(x: int, multiple: int = LANE) -> int:
@@ -145,8 +144,8 @@ def build_region_graph(
 ) -> RegionGraph:
     """Build the padded dense-adjacency graph for a lat/lon grid region.
 
-    `pad_to=None` pads N up to the next multiple of 128 (TPU lane width) so
-    the adjacency matmul tiles cleanly onto the MXU.
+    `pad_to=None` pads N up to the next multiple of LANE (128), so regions
+    of similar size share one compiled shape.
     """
     positions = grid_node_positions(lats, lons)
     n = positions.shape[0]

@@ -36,7 +36,7 @@ def init_dense(key, in_dim: int, out_dim: int) -> Params:
 
 
 def accum_dtype(compute_dtype):
-    """MXU accumulation dtype: float32 for f32/bf16 compute, float64 when the
+    """Matmul accumulation dtype: float32 for f32/bf16 compute, float64 when the
     whole computation is in f64 (gradient finite-difference tests)."""
     return jnp.float64 if compute_dtype == jnp.float64 else jnp.float32
 

@@ -1,13 +1,12 @@
 """Dense-adjacency graph convolution.
 
 The sparse scatter/gather GCNConv of the reference (model.py:23-26, via
-torch_geometric) becomes two dense matmuls on the MXU:
+torch_geometric) becomes two dense matmuls:
 
     out = A_hat @ (H @ W) + b
 
 with `A_hat` the precomputed GCN-normalized adjacency (graph.py). For the
-~441-node region graphs this is far faster on TPU than any gather-based
-formulation: both matmuls tile onto the 128x128 systolic array and XLA fuses
+~441-node region graphs both matmuls are dense library calls and XLA fuses
 the bias/activation. The feature transform is applied *before* aggregation
 (H @ W first) because hidden width (256) >= input width, minimizing the
 [N, N] matmul operand size.
@@ -46,7 +45,7 @@ def apply_gcn_layer(
       a_hat: [N, N] normalized adjacency.
       h: [..., N, C_in] node features (leading dims: time, batch, ...).
     Returns:
-      [..., N, C_out] float32 (accumulation forced to f32 for MXU).
+      [..., N, C_out] float32 (accumulation forced to f32).
     """
     from weatherforecast_stgcn_maml_tpu.models.common import accum_dtype
 

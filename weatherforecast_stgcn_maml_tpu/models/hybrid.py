@@ -1,10 +1,10 @@
 """Hybrid STGCN->LSTM forecaster — the flagship model.
 
 Capability match for HybridSTGCN_LSTM (hybrid_model.py:6-117), redesigned
-TPU-first:
+for an accelerator:
 
   * spatial encoding: per-timestep dense-adjacency GCN stack (models/stgcn)
-    — one batched MXU einsum instead of PyG scatter kernels;
+    — one batched einsum instead of PyG scatter kernels;
   * temporal modeling: stacked LSTM scanned over the window with ALL nodes as
     the batch axis — replacing the reference's per-node Python loop of N
     sequential cuDNN launches (hybrid_model.py:94-102);
@@ -34,7 +34,11 @@ from weatherforecast_stgcn_maml_tpu.models.common import (
     init_dense,
     resolve_dtype,
 )
-from weatherforecast_stgcn_maml_tpu.models.lstm import apply_lstm, init_lstm
+from weatherforecast_stgcn_maml_tpu.models.lstm import (
+    apply_lstm,
+    apply_lstm_wavefront,
+    init_lstm,
+)
 from weatherforecast_stgcn_maml_tpu.models.stgcn import apply_encoder, init_encoder
 
 
@@ -91,31 +95,14 @@ def apply_hybrid(
         h = jax.lax.stop_gradient(h)
 
     h = jnp.swapaxes(h, 0, 1)  # [N, W, hidden] — nodes become the batch axis
-    if cfg.use_pallas_lstm and (not train or cfg.lstm_dropout == 0.0):
-        from weatherforecast_stgcn_maml_tpu.ops.fused_lstm import (
-            fused_lstm_last_hidden,
-        )
-
-        feat = fused_lstm_last_hidden(params["lstm"], h, compute_dtype=dtype)
-    else:
-        from weatherforecast_stgcn_maml_tpu.models.lstm import (
-            apply_lstm_wavefront,
-        )
-
-        if cfg.lstm_wavefront:
-            feat = apply_lstm_wavefront(
-                params["lstm"], h,
-                dropout_rate=cfg.lstm_dropout, train=train, rng=lstm_rng,
-                compute_dtype=dtype, unroll=cfg.lstm_unroll,  # 0 = full
-            )  # [N, lstm_hidden]
-        else:
-            feat = apply_lstm(
-                params["lstm"], h,
-                dropout_rate=cfg.lstm_dropout, train=train, rng=lstm_rng,
-                compute_dtype=dtype,
-                unroll=cfg.lstm_unroll,  # 0 = full (normalized in apply_lstm)
-                kernel=cfg.lstm_kernel,
-            )  # [N, lstm_hidden]
+    lstm_fn = apply_lstm_wavefront if cfg.lstm_wavefront else apply_lstm
+    with jax.named_scope("lstm"):
+        feat = lstm_fn(
+            params["lstm"], h,
+            dropout_rate=cfg.lstm_dropout, train=train, rng=lstm_rng,
+            compute_dtype=dtype,
+            unroll=cfg.lstm_unroll,  # 0 = full (normalized in apply_lstm)
+        )  # [N, lstm_hidden]
     feat = dropout(feat, cfg.lstm_dropout, head_rng, train=train)
 
     out = apply_dense(params["head"], feat, compute_dtype=dtype)  # [N, H*12]

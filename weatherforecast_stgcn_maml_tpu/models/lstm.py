@@ -3,7 +3,7 @@
 The reference runs one cuDNN LSTM launch *per node* in a Python loop
 (hybrid_model.py:94-102) — N sequential kernel launches per forward. Here the
 node axis is simply the batch axis of a scanned LSTM: one compiled scan of W
-steps processes all nodes at once, each step being two MXU matmuls
+steps processes all nodes at once, each step being two matmuls
 ([N, C] @ [C, 4H] and [N, H] @ [H, 4H]). The input projection for *all*
 timesteps is hoisted out of the scan into a single [W*N, C] @ [C, 4H] matmul
 (the recurrent matmul is the only sequential dependency).
@@ -24,7 +24,6 @@ from weatherforecast_stgcn_maml_tpu.models.common import (
     lstm_bias,
     scaled_uniform,
 )
-from weatherforecast_stgcn_maml_tpu.ops.lstm_scan import lstm_recurrence
 
 
 def init_lstm(key, in_dim: int, hidden: int, num_layers: int) -> Params:
@@ -45,13 +44,46 @@ def init_lstm(key, in_dim: int, hidden: int, num_layers: int) -> Params:
     return {"layers": layers}
 
 
+def _lstm_recurrence(xp, wh, *, compute_dtype=jnp.float32, unroll: int = 1):
+    """Recurrent part of one LSTM layer via lax.scan.
+
+    Args:
+      xp: [T, B, 4H] pre-computed input projection + bias (accum dtype).
+      wh: [H, 4H] recurrent weights (cast to compute_dtype).
+    Returns:
+      h_all: [T, B, H] hidden states for every step.
+    """
+    t = xp.shape[0]
+    hidden = wh.shape[0]
+    acc = accum_dtype(compute_dtype)
+    whc = wh.astype(compute_dtype)
+
+    def step(carry, x_t):
+        h, c = carry
+        gates = x_t + jnp.dot(
+            h.astype(compute_dtype), whc, preferred_element_type=acc
+        )
+        i, f, g, o = jnp.split(gates, 4, axis=-1)
+        i, f, o = jax.nn.sigmoid(i), jax.nn.sigmoid(f), jax.nn.sigmoid(o)
+        c = f * c + i * jnp.tanh(g)
+        h = o * jnp.tanh(c)
+        return (h, c), h
+
+    # Zero carry derived from a traced input: dtype AND device-varying type
+    # must match under shard_map.
+    zero = xp[0, :, :hidden] * 0.0
+    _, h_all = jax.lax.scan(
+        step, (zero, zero), xp, unroll=max(1, min(unroll, t))
+    )
+    return h_all
+
+
 def _lstm_layer(
     p: Params,
     x_tbc: jnp.ndarray,
     *,
     compute_dtype=jnp.float32,
     unroll: int = 1,
-    kernel: str = "xla",
 ) -> jnp.ndarray:
     """One LSTM layer over time-major input [T, B, C] -> outputs [T, B, H]."""
     acc = accum_dtype(compute_dtype)
@@ -63,15 +95,8 @@ def _lstm_layer(
         jnp.dot(x_tbc.astype(compute_dtype), wx, preferred_element_type=acc)
         + bias
     )
-    # The sequential recurrence: XLA unrolled scan, or the fused Pallas scan
-    # kernel with a hand-written backward (ops/lstm_scan.py) — the latter
-    # keeps `wh` and the (h, c) carry VMEM-resident across all T steps
-    # instead of paying an HBM round-trip per step, which is what bounds the
-    # MAML inner loop (benchmarks/perf_probe.py: LSTM grad is ~2.4 of the
-    # 3.7 ms inner step).
-    return lstm_recurrence(
-        x_proj, p["wh"], compute_dtype=compute_dtype, kernel=kernel,
-        unroll=unroll,
+    return _lstm_recurrence(
+        x_proj, p["wh"], compute_dtype=compute_dtype, unroll=unroll
     )
 
 
@@ -93,8 +118,7 @@ def apply_lstm_wavefront(
     Advancing the whole wavefront at once needs only T+L-1 sequential steps,
     each ONE lane-batched matmul [L, B, 2H] @ [L, 2H, 4H] (inter-layer input
     and recurrent contributions concatenated) — a ~3.5x cut in sequential
-    depth for the 4x24 reference shape, which is what matters in the
-    latency-bound MAML inner loop (benchmarks/perf_probe.py).
+    depth for the 4x24 reference shape.
 
     Mathematically identical to `apply_lstm` INCLUDING the train-mode
     dropout realization: the inter-layer masks are drawn from the exact
@@ -102,7 +126,7 @@ def apply_lstm_wavefront(
     and gathered per wavefront step — lane l's input at step k is layer
     l-1's output at time k-l, so it takes mask element [l-1, k-l]. This
     makes the wavefront a legal twice-differentiable stand-in for the
-    layerwise/fused routes inside second-order MAML's Hessian transpose
+    layerwise route inside second-order MAML's Hessian transpose
     (train/so_grad.py), where the HVP must be of the SAME stochastic loss
     the inner gradient used (values agree to accumulation-order rounding;
     masks agree exactly). Lane l is reset at its first active step, so
@@ -242,27 +266,19 @@ def apply_lstm(
     rng=None,
     compute_dtype=jnp.float32,
     unroll: int = 1,
-    kernel: str = "xla",
 ) -> jnp.ndarray:
     """Run the stacked LSTM.
 
     Args:
       x: [B, T, C] batch-major sequences (B = nodes).
-      kernel: recurrence backend — "xla" (unrolled scan); "auto" (the
-        whole-stack fused Pallas kernel, ops/fused_lstm_stack.py, on TPU
-        when shapes allow — one kernel per direction, inter-layer
-        activations never leave VMEM; first-order diff only); "pallas_stack"
-        (force the stack kernel — tests use it with interpret mode);
-        "pallas" (the per-LAYER recurrence kernel, ops/lstm_scan.py — kept
-        flag-gated: measured ~8% slower than XLA at the meta step, its
-        XLA<->Pallas boundary traffic outweighs the VMEM residency win).
+      unroll: scan unroll factor; 0 = unroll fully (trip count T).
     Returns:
       [B, H] last-timestep hidden state of the top layer — the feature the
       hybrid head consumes (hybrid_model.py:101).
 
     Inter-layer dropout is applied to every layer's output except the last
-    (torch.nn.LSTM semantics when num_layers > 1); the fused-stack path
-    draws bit-identical masks from the same fold_in(rng, l) streams.
+    (torch.nn.LSTM semantics when num_layers > 1), layer l's mask drawn from
+    the fold_in(rng, l) stream.
     """
     if unroll <= 0:
         # "0 = full unroll" convention (cfg.lstm_unroll) normalized HERE so
@@ -270,61 +286,9 @@ def apply_lstm(
         # [B, T, C], so full unroll = T.
         unroll = x.shape[1]
     n_layers = len(params["layers"])
-    if kernel in ("auto", "pallas_stack"):
-        from weatherforecast_stgcn_maml_tpu.ops.fused_lstm_stack import (
-            lstm_stack_last_all,
-            lstm_stack_last_all_chunked,
-            stack_chunk_size,
-            stack_supported,
-        )
-
-        b, t, c = x.shape
-        hidden = params["layers"][0]["wh"].shape[0]
-        # float64 is excluded even for the forced "pallas_stack" kernel:
-        # the stack kernels accumulate in f32, which would silently
-        # truncate the float64 finite-difference test path (repo matmul
-        # rule) — f64 always runs the XLA scan.
-        use_stack = compute_dtype != jnp.float64 and (
-            kernel == "pallas_stack"
-            or (
-                jax.default_backend() == "tpu"
-                and stack_supported(
-                    t, b, c, hidden, n_layers,
-                    itemsize=jnp.dtype(compute_dtype).itemsize,
-                )
-            )
-        )
-        if use_stack:
-            return lstm_stack_last_all(
-                params, x, dropout_rate=dropout_rate, train=train, rng=rng,
-                compute_dtype=compute_dtype,
-            )
-        if kernel == "auto" and compute_dtype != jnp.float64 and (
-            jax.default_backend() == "tpu"
-        ):
-            # Batch too wide for one kernel instance (wide supervised steps
-            # put batch*nodes rows through the recurrence): run the fused
-            # stack in row chunks — rows are independent, masks are drawn
-            # full-batch from the same streams, numerics bit-identical.
-            # The XLA scan at these widths is HBM-bound elementwise traffic
-            # (12x the LSTM FLOP floor at 32768 rows;
-            # benchmarks/large_node_decomp_probe.json).
-            chunk = stack_chunk_size(
-                t, b, c, hidden, n_layers,
-                itemsize=jnp.dtype(compute_dtype).itemsize,
-            )
-            if chunk is not None and chunk < b:
-                return lstm_stack_last_all_chunked(
-                    params, x, chunk,
-                    dropout_rate=dropout_rate, train=train, rng=rng,
-                    compute_dtype=compute_dtype,
-                )
-        kernel = "xla"  # stack unsupported at these shapes -> XLA scan
     h = jnp.swapaxes(x, 0, 1)  # [T, B, C] time-major for scan
     for l, layer in enumerate(params["layers"]):
-        h = _lstm_layer(
-            layer, h, compute_dtype=compute_dtype, unroll=unroll, kernel=kernel
-        )
+        h = _lstm_layer(layer, h, compute_dtype=compute_dtype, unroll=unroll)
         if l < n_layers - 1 and n_layers > 1:
             sub = jax.random.fold_in(rng, l) if rng is not None else None
             h = dropout(h, dropout_rate, sub, train=train)

@@ -45,7 +45,6 @@ def apply_encoder(
     train: bool = False,
     rng=None,
     final_dropout: bool = False,
-    use_pallas: bool | None = None,
 ) -> jnp.ndarray:
     """Spatial encoder over [..., W, N, C_in] -> [..., W, N, hidden].
 
@@ -54,55 +53,15 @@ def apply_encoder(
     forward uses `final_dropout=True` (model.py:40-42).
     """
     dtype = resolve_dtype(cfg.compute_dtype)
-    if use_pallas is None:
-        use_pallas = cfg.use_pallas_gcn
-    if use_pallas and (not train or cfg.gcn_dropout == 0.0):
-        # No inter-layer dropout -> fuse the WHOLE stack in one Pallas
-        # kernel (activations stay in VMEM across layers; measured 1.17x
-        # vs XLA at reference shapes on v5e, bit-exact).
-        from weatherforecast_stgcn_maml_tpu.ops.fused_gcn import fused_gcn_stack
-
-        return fused_gcn_stack(params["layers"], a_hat, x, compute_dtype=dtype)
-    if use_pallas and train and x.ndim == 3:
-        # TRAINING path (round 3): the fused encoder kernel folds every
-        # layer's matmuls + ReLU + dropout-mask multiply into one Pallas
-        # program per direction with a hand-written backward
-        # (ops/fused_gcn_train.py) — masks drawn bit-identically to the
-        # layerwise path below. First-order only (custom VJP): SO MAML
-        # passes use_pallas=False via train/maml.py.
-        from weatherforecast_stgcn_maml_tpu.ops import fused_gcn_train as fgt
-        from weatherforecast_stgcn_maml_tpu.ops.fused_gcn_train import (
-            gcn_stack_train,
-            train_supported,
-        )
-
-        t, n, c_in = x.shape
-        hid = params["layers"][0]["w"].shape[1]
-        # float64 is excluded even under force_interpret: the train kernels
-        # accumulate in f32 (preferred_element_type), which would silently
-        # truncate the float64 finite-difference test path (repo matmul
-        # rule) — f64 always takes the layerwise XLA route below.
-        if dtype != jnp.float64 and (
-            fgt._FORCE_INTERPRET
-            or (
-                jax.default_backend() == "tpu"
-                and train_supported(t, n, c_in, hid, len(params["layers"]))
-            )
-        ):
-            return gcn_stack_train(
-                params["layers"], a_hat, x,
-                dropout_rate=cfg.gcn_dropout, rng=rng,
-                final_dropout=final_dropout, compute_dtype=dtype,
-            )
-
     h = x
     n_layers = len(params["layers"])
-    for l, layer in enumerate(params["layers"]):
-        h = apply_gcn_layer(layer, a_hat, h, compute_dtype=dtype)
-        h = jax.nn.relu(h)
-        if l < n_layers - 1 or final_dropout:
-            sub = jax.random.fold_in(rng, l) if rng is not None else None
-            h = dropout(h, cfg.gcn_dropout, sub, train=train)
+    with jax.named_scope("gcn_encoder"):
+        for l, layer in enumerate(params["layers"]):
+            h = apply_gcn_layer(layer, a_hat, h, compute_dtype=dtype)
+            h = jax.nn.relu(h)
+            if l < n_layers - 1 or final_dropout:
+                sub = jax.random.fold_in(rng, l) if rng is not None else None
+                h = dropout(h, cfg.gcn_dropout, sub, train=train)
     return h
 
 

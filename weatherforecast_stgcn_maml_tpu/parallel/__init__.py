@@ -2,9 +2,9 @@
 
 The reference has no parallelism of any kind (SURVEY.md section 2: single
 global device, serial task loop, serial region loop). This package realizes
-the workload's latent parallelism TPU-natively:
+the workload's latent parallelism:
 
-  * meta-batch data parallelism over ICI (`meta_dp.py`) — tasks sharded
+  * meta-batch data parallelism (`meta_dp.py`) — tasks sharded
     across a `jax.sharding.Mesh`, psum-reduced meta-gradients — optionally
     combined with node (spatial) model parallelism on a 2-D dp x sp mesh
     (`make_parallel_meta_step_2d`);

@@ -1,23 +1,23 @@
 """Multi-host (multi-process) initialization helpers.
 
-A multi-host TPU deployment runs one process per host; JAX's distributed
-runtime wires them into a single logical device mesh over ICI (within a
-slice) and DCN (across slices). This module wraps the boilerplate:
+A multi-host deployment runs one process per host; JAX's distributed
+runtime wires them into a single logical device mesh spanning every
+host. This module wraps the boilerplate:
 
   * `initialize()` — `jax.distributed.initialize` from explicit arguments or
     the standard env vars (`COORDINATOR_ADDRESS`, `NUM_PROCESSES`,
-    `PROCESS_ID`); on single-process TPU VMs it is a documented no-op.
+    `PROCESS_ID`); on a single-process machine it is a documented no-op.
   * `global_mesh()` — a 1-D dp mesh over ALL global devices; combined with
     `parallel/meta_dp.py`, the meta batch then shards across hosts and the
-    gradient psum rides ICI (XLA routes any cross-slice segment over DCN).
+    gradient psum spans hosts.
   * The region-adaptation fleet needs no collectives at all: use
     `parallel/fleet.py:auto_shard()` to partition regions by process.
 
-No multi-host TPU hardware exists on this image, but the recipe itself IS
-executed: tests/test_distributed.py spawns two OS processes that join a
-coordination service on localhost (CPU backend, 2 fake devices each),
-build the global mesh, and run a cross-process psum. SURVEY.md test
-strategy (d) covers the sharding logic on a virtual mesh in addition.
+The tests run the recipe without a cluster: tests/test_distributed.py
+spawns two OS processes that join a coordination service on localhost
+(CPU backend, 2 fake devices each), build the global mesh, and run a
+cross-process psum. SURVEY.md test strategy (d) covers the sharding logic
+on a virtual mesh in addition.
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
 """Region-fleet partitioning for multi-host runs.
 
 Regional adaptation jobs are independent (the reference runs them serially,
-main.py:30); across a multi-host TPU deployment each host takes a partition
+main.py:30); across a multi-host deployment each host takes a partition
 of the region list and all hosts share checkpoints through the filesystem —
-no collective communication is needed (DCN is only implicitly involved in
-the shared storage). `auto_shard()` picks the partition from the JAX
-process topology so the same pipeline command works on 1 or N hosts.
+no collective communication is needed. `auto_shard()` picks the
+partition from the JAX process topology so the same pipeline command
+works on 1 or N hosts.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""ICI-parallel region fleet: adapt many regions at once, sharded over a mesh.
+"""Mesh-parallel region fleet: adapt many regions at once, sharded over a mesh.
 
 The reference adapts its 18 regions strictly serially (main.py:30-69); the
 host-level counterpart here (`parallel/fleet.py`) still runs one region per
@@ -7,8 +7,7 @@ adaptations are completely independent (own params, own data, own climate
 optimizer — no cross-region reduction of any kind), so a stacked fleet of R
 regions shards its leading axis over the mesh and every device fine-tunes
 its own regions locally. Zero collectives are inserted — the sharding IS
-the parallelism, and on a v5e-8 the whole 18-region fine-tune costs the
-wall-clock of ceil(18/8) = 3 regions.
+the parallelism: on 8 devices the 18 regions take ceil(18/8) = 3 rounds.
 
 Shapes: all regions are padded to one node count (graph.py) and must share
 the feature length T (true for the synthetic backend and for ERA5 regions

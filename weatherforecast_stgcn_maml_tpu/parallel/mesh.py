@@ -14,9 +14,9 @@ def make_mesh(cfg: MeshConfig = MeshConfig(), devices=None) -> Mesh:
 
     MAML's meta batch is the natural parallel dimension of this workload
     (SURVEY.md section 2): tasks are independent until the outer gradient
-    mean, so a 1-D mesh keeps the only collective (the grad psum) riding
-    ICI neighbors. With `cfg.spatial_devices > 1` the mesh is 2-D dp x sp
-    (see make_mesh_2d) for node-sharded meta-training.
+    mean, so a 1-D mesh has one collective (the grad psum). With
+    `cfg.spatial_devices > 1` the mesh is 2-D dp x sp (see make_mesh_2d)
+    for node-sharded meta-training.
     """
     if devices is None:
         devices = jax.devices()
@@ -40,14 +40,13 @@ def make_mesh(cfg: MeshConfig = MeshConfig(), devices=None) -> Mesh:
 def resolve_sp_impl(sp_impl: str, model_cfg) -> str:
     """Resolve MeshConfig.sp_impl="auto" to a concrete 2-D step impl.
 
-    "auto" picks "shardmap" for the hybrid family — the manual-collective
-    path is the only one that keeps the fused Pallas kernels engaged per
-    node shard (GSPMD pins lstm_kernel="xla", parallel/meta_dp.py), worth
-    the measured 2-4x kernel speedups, and its residual glue cost is 2.3%
-    at a 1x1 mesh (benchmarks/shardmap_meta_probe.json, round 5: 289.6 vs
-    283.0 ms best — down from 20% in round 4 via the node-sharded fused
-    GCN sandwich encoder). Other families fall back to "gspmd", which
-    supports every registry model through sharding constraints.
+    "auto" picks "shardmap" for the hybrid family: its collectives are
+    written by hand (one all-gather per GCN layer, one psum of the inner
+    gradient per step, parallel/meta_sp.py), so what crosses the mesh does
+    not depend on the partitioner's choices. Which of the two is faster on
+    a real mesh is not settled; both are tested against the one-device
+    step. Other families take "gspmd", the only impl that supports every
+    registry model (through sharding constraints).
     """
     if sp_impl != "auto":
         return sp_impl
@@ -64,10 +63,7 @@ def make_mesh_2d(
 ) -> Mesh:
     """2-D mesh: task data-parallelism x node (spatial) model-parallelism.
 
-    Row-major layout puts the `sp` axis on adjacent devices: the per-GCN-
-    layer all-gather (the chatty collective — one per layer per inner step)
-    rides nearest-neighbor ICI, while the once-per-micro-update meta-grad
-    psum over `dp` crosses the longer stride.
+    Devices are laid out row-major, `sp` varying fastest.
     """
     if devices is None:
         devices = jax.devices()

@@ -3,7 +3,7 @@
 Tasks are sharded along the mesh's data axis; parameters and optimizer state
 are replicated. Each device runs the full inner-adaptation scan for its local
 tasks (zero communication — the inner loop is task-local by construction) and
-XLA inserts a single psum over ICI for the meta-gradient mean. This is the
+XLA inserts a single psum for the meta-gradient mean. This is the
 sharded-jit ("pjit") formulation: sharding annotations in, collectives out.
 """
 
@@ -66,7 +66,7 @@ def make_parallel_meta_step_2d(
     padded-node axis of every task operand sharded over `sp_axis`.
 
     This is the scaling path for meta-training on regions too large for one
-    chip's activation memory (continental 0.25-degree grids; SURVEY.md §5
+    device's activation memory (continental 0.25-degree grids; SURVEY.md §5
     long-context note): each dp group adapts its tasks with the node axis
     split across its sp column, GSPMD inserting the per-GCN-layer
     all-gather and the loss/grad psums — the collectives
@@ -75,12 +75,6 @@ def make_parallel_meta_step_2d(
     device activation memory genuinely scales down with the sp degree
     (temp memory 147.9 -> 36.7 MB going dp2 -> dp2 x sp4 at 1024 nodes;
     regression-tested in tests/test_parallel.py).
-
-    The Pallas custom-VJP kernels are opaque to the SPMD partitioner, so
-    `make_meta_step(sp_axis=...)` pins the twice-vetted XLA routes, exactly
-    like second-order MAML does (train/maml.py adapt_and_query_loss). At
-    multi-chip node counts the XLA path is also the measured-fast one (MFU
-    rises with nodes; benchmarks/scale_envelope.json).
 
     Signature matches `make_parallel_meta_step`; place `tasks` with
     `parallel.mesh.shard_task_batch_2d` (or any layout — jit reshards).

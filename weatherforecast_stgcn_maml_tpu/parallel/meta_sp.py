@@ -1,17 +1,15 @@
-"""shard_map 2-D (dp x sp) MAML meta step — fused kernels on the sharded path.
+"""shard_map 2-D (dp x sp) MAML meta step — manual collectives.
 
-The GSPMD 2-D meta step (`parallel.meta_dp.make_parallel_meta_step_2d`) pins
-the XLA model routes because Pallas custom-VJP kernels are opaque to the SPMD
-partitioner — so multi-chip meta-training loses the measured 2-4x fused-
-kernel wins (ops/fused_lstm_stack.py). This module recovers them with
-MANUAL partitioning: one `jax.shard_map` wraps the whole micro-update loss,
-tasks sharded over `dp` and the padded-node axis over `sp`, and the body
+The GSPMD 2-D meta step (`parallel.meta_dp.make_parallel_meta_step_2d`)
+leaves the partitioning of the inner loop to XLA's SPMD partitioner. This
+module writes it by hand instead: one `jax.shard_map` wraps the whole
+micro-update loss, tasks sharded over `dp` and the padded-node axis over
+`sp`, and the body
 
   * runs the inner-SGD scan with a node-LOCAL hybrid forward
-    (`parallel.spatial.hybrid_local_forward`): XLA GCN dots with one
-    all-gather per layer, the fused LSTM stack kernel per shard — the node
-    axis is the LSTM batch axis, so the per-shard row count shrinks back
-    under the kernel's VMEM gate (exactly the regime the kernel wins in);
+    (`parallel.spatial.hybrid_local_forward`): GCN dots with one all-gather
+    per layer, the LSTM on the local node rows (the node axis is the LSTM
+    batch axis, so it needs no communication);
   * differentiates the psummed support loss per inner step and psums the
     per-shard PARTIAL gradients over `sp` into the total before the SGD
     update (the SPMD invariant: grads of replicated-in-value params arrive
@@ -30,16 +28,13 @@ convention), a different-but-valid stream from the unsharded step, because
 drawing full-N masks per shard would reinstate the per-device memory ceiling
 the sp axis removes. Second-order MAML is supported: each inner gradient is
 wrapped in train/so_grad.py's custom_vjp with the node-local losses, so the
-Hessian transpose is a per-shard HVP (so_impl="fhvp" keeps the R-operator
-kernels engaged per shard) psum-composed at the carry boundary.
+Hessian transpose is a per-shard HVP psum-composed at the carry boundary.
 
-Reference workload: the serial task loop + per-region adaptation of
-/root/reference/train_hybrid_maml_v5.py:110-184 at fleet scale.
+Reference workload: the serial task loop + per-region adaptation of the
+reference's train_hybrid_maml_v5.py:110-184 at fleet scale.
 """
 
 from __future__ import annotations
-
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -91,9 +86,8 @@ def _local_adapt_and_query_loss(
     """
     # Promote params to device-varying over BOTH mesh axes before any use:
     # the task operands vary (dp: different tasks; sp: node shards), so all
-    # downstream values — including the fused kernels' custom-VJP weight
-    # cotangents, which are per-shard PARTIAL sums no custom_vjp can reduce
-    # itself — are varying. The pvary keeps the inner scan's carry type
+    # downstream values — including the weight cotangents, which are
+    # per-shard PARTIAL sums — are varying. The pvary keeps the inner scan's carry type
     # stable, and its transpose is a psum over (dp, sp): exactly the
     # meta-gradient reduction, inserted at this boundary by VMA tracking.
     params = jax.tree.map(
@@ -101,22 +95,6 @@ def _local_adapt_and_query_loss(
     )
     n_support = task.support_x.shape[0]
     total_steps = cfg.inner_epochs * n_support
-
-    model_cfg_x = model_cfg
-    if cfg.second_order and (
-        model_cfg.lstm_kernel != "xla"
-        or model_cfg.use_pallas_gcn
-        or model_cfg.use_pallas_lstm
-    ):
-        # Same rerouting as train/maml.py: the fused kernels are FO custom
-        # VJPs, so the twice-differentiated paths need the XLA routes; with
-        # so_impl != "xla" only the Hessian transpose runs there.
-        model_cfg_x = dataclasses.replace(
-            model_cfg, lstm_kernel="xla", use_pallas_gcn=False,
-            use_pallas_lstm=False,
-        )
-        if cfg.so_impl == "xla":
-            model_cfg = model_cfg_x
 
     def _support_loss_on(mc):
         # Task data arrives as an explicit aux pytree: the SO route wraps
@@ -145,19 +123,7 @@ def _local_adapt_and_query_loss(
     if cfg.second_order:
         from weatherforecast_stgcn_maml_tpu.train.so_grad import make_so_grad
 
-        loss_x = _support_loss_on(model_cfg_x)
-        fused_grad_fn = None
-        if cfg.so_impl == "fhvp":
-            from weatherforecast_stgcn_maml_tpu.train.so_fused import (
-                make_local_grad_loss_fused,
-            )
-
-            fused_grad_fn = make_local_grad_loss_fused(
-                model_cfg, sp_axis, loss_x
-            )
-        so_inner_grad = make_so_grad(
-            support_loss, loss_x, cfg.so_impl, fused_grad_fn=fused_grad_fn
-        )
+        so_inner_grad = make_so_grad(support_loss, support_loss, cfg.so_impl)
 
     def inner_step(p, s):
         idx = jnp.mod(s, n_support)
@@ -170,8 +136,7 @@ def _local_adapt_and_query_loss(
         else:
             # FOMAML: detach the evaluation point so the outer
             # linearization never propagates tangents into the inner
-            # fwd/bwd graph — load-bearing for the fused kernels (no JVP
-            # rule), same as train/maml.py inner_step.
+            # fwd/bwd graph, same as train/maml.py inner_step.
             p_in = jax.lax.stop_gradient(p)
             g = jax.grad(support_loss)(p_in, aux, step_rng)
         # The carry was pvary'd to device-varying, so the gradient above is
@@ -227,19 +192,17 @@ def make_shardmap_meta_step_2d(
     donate_state: bool = True,
     jit: bool = True,
 ):
-    """Build the shard_map dp x sp meta step (fused kernels engaged).
+    """Build the shard_map dp x sp meta step.
 
     Same signature and task layout as `make_parallel_meta_step_2d`:
     `(state, tasks, rng) -> (state, metrics)`, tasks placed with
     `parallel.mesh.shard_task_batch_2d`. Requires `model.family == "hybrid"`
     (the flagship; other families meta-train on the GSPMD path). Supports
     first-order AND second-order MAML: the SO Hessian transpose runs
-    through train/so_grad.py on the node-local losses, with so_impl="fhvp"
-    keeping the R-operator kernels per shard.
+    through train/so_grad.py on the node-local losses.
 
     `jit=False` returns the unjitted step (for embedding in a chained
-    scan). CPU-mesh tests force the fused kernels through interpret mode
-    with `ops.fused_lstm_stack.force_interpret()`.
+    scan).
     """
     if getattr(model_cfg, "family", "hybrid") != "hybrid":
         raise ValueError(

@@ -2,17 +2,17 @@
 
 The per-region grids of the reference are tiny (~441 nodes), but the node
 axis is this workload's big dimension: continental/global grids at 0.25
-degrees reach 1M+ nodes, far beyond one chip's HBM at hidden width 256.
+degrees reach 1M+ nodes, far beyond one device's memory at hidden width 256.
 SURVEY.md §5 (long-context note) prescribes sharding the *node* dimension —
 the spatial analog of sequence parallelism. This module implements it with
-`jax.shard_map` and explicit ICI collectives:
+`jax.shard_map` and explicit collectives:
 
   * node features `[W, N, C]` are sharded along N; every dense layer,
     LSTM step, and head matmul is node-local (zero communication);
   * graph convolution needs neighbor features: each device holds its row
     block `[N/d, N]` of the normalized adjacency, `all_gather`s the
     feature-transformed activations `H @ W` (the only communication, one
-    all-gather per GCN layer riding ICI), then contracts locally;
+    all-gather per GCN layer), then contracts locally;
   * the masked loss ends with one `psum`.
 
 The all-gather moves `[W, N, hidden]` per layer; with the feature transform
@@ -65,31 +65,6 @@ def _spatial_encoder(
     from weatherforecast_stgcn_maml_tpu.models.common import dropout
 
     dtype = resolve_dtype(cfg.compute_dtype)
-    # Fused sandwich route (ops/fused_gcn_shard.py): per-layer Pallas op —
-    # A-row contraction + bias + ReLU + int8 dropout mask + next dense
-    # transform fused per shard, gathers staying in XLA. Recovers the
-    # unsharded step's fused-GCN-kernel win on the shard_map path (VERDICT
-    # r4 item 3). f64 is excluded (f32 kernel accumulation would truncate
-    # the finite-difference test path — repo matmul rule); first-order only
-    # (custom VJP), which matches this path's callers: the SO shard_map
-    # step reroutes its twice-differentiated model copy to use_pallas=False
-    # (parallel/meta_sp.py).
-    if cfg.use_pallas_gcn and dtype != jnp.float64:
-        from weatherforecast_stgcn_maml_tpu.ops import fused_gcn_shard as fgs
-
-        t, nl, c_in = h_local.shape
-        n_full = a_rows.shape[1]
-        hid = params["layers"][0]["w"].shape[1]
-        if fgs._FORCE_REFERENCE or (
-            jax.default_backend() == "tpu"
-            and fgs.shard_encoder_supported(t, nl, n_full, c_in, hid, dtype)
-        ):
-            return fgs.gcn_shard_encoder(
-                params["layers"], a_rows, h_local, axis,
-                dropout_rate=cfg.gcn_dropout if train else 0.0,
-                rng=rng if train else None,
-                compute_dtype=dtype,
-            )
     acc = accum_dtype(dtype)
     h = h_local
     n_layers = len(params["layers"])
@@ -135,7 +110,6 @@ def make_spatial_forward(model_cfg: ModelConfig, mesh, axis: str = "sp"):
             params["lstm"], h,
             compute_dtype=resolve_dtype(model_cfg.compute_dtype),
             unroll=model_cfg.lstm_unroll,  # 0 = full (normalized in apply_lstm)
-            kernel=model_cfg.lstm_kernel,
         )
         out = apply_dense(
             params["head"], feat,
@@ -174,13 +148,9 @@ def hybrid_local_forward(
         convention as `make_spatial_train_step`. None disables dropout.
     Returns [H, N/d, 12] local predictions.
 
-    The fused LSTM stack kernel engages per shard when the LOCAL row count
-    passes its VMEM gate (`model_cfg.lstm_kernel` forwarded to apply_lstm)
-    — the node axis is the LSTM batch axis, so sharding it shrinks each
-    kernel instance back under the gate. The GCN stack stays on XLA dots
-    with one all-gather per layer (`_spatial_encoder`): its whole-stack
-    fused kernel needs full-N activations resident, which is exactly what
-    the sp axis exists to avoid.
+    The node axis is the LSTM batch axis, so the LSTM runs on the local rows
+    with no communication; the GCN stack does one all-gather per layer
+    (`_spatial_encoder`).
     """
     w, n_local, _ = x_local.shape
     if rng is not None:
@@ -206,7 +176,6 @@ def hybrid_local_forward(
         dropout_rate=model_cfg.lstm_dropout, train=train, rng=lstm_rng,
         compute_dtype=dtype,
         unroll=model_cfg.lstm_unroll,  # 0 = full (normalized in apply_lstm)
-        kernel=model_cfg.lstm_kernel,
     )
     from weatherforecast_stgcn_maml_tpu.models.common import dropout
 
@@ -217,7 +186,7 @@ def hybrid_local_forward(
 
 
 def make_spatial_train_step(model_cfg: ModelConfig, mesh, tx, axis: str = "sp"):
-    """Node-sharded TRAINING step for grids beyond one chip's activation
+    """Node-sharded TRAINING step for grids beyond one device's activation
     memory: forward and backward both run with the node axis sharded
     (autodiff through shard_map inserts the psum for the replicated-param
     gradients), dropout uses a per-shard rng (fold_in by shard index), and

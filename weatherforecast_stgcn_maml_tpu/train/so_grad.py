@@ -2,30 +2,17 @@
 
 The SO meta-gradient through K inner SGD steps needs, at every inner step,
 the transpose of d(inner grad)/d(params) applied to the incoming cotangent
-— a Hessian-vector product. The default route (``so_impl="xla"``)
-linearizes-and-transposes the whole inner gradient computation, which has
-two costs at once:
-
-  * every fused Pallas kernel must be routed off (their custom VJPs are
-    first-order only), so the ENTIRE step — inner grads, query loss, query
-    reverse AND the Hessian transposes — runs the slower XLA paths;
-  * XLA's transpose-of-a-reverse-scan schedules poorly at this model's
-    shapes (benchmarks/so_decomp_probe.json: the LSTM stack is ~80% of SO
-    step time at ~12x its FO-grad cost).
+— a Hessian-vector product. The default JAX route (``so_impl="xla"``)
+linearizes-and-transposes the whole inner gradient computation, i.e. the
+transpose of a reverse scan.
 
 Because the Hessian of a scalar loss is symmetric, ``(dg/dp)^T ct == H ct``
 (equality of mixed partials), the transpose can instead be an *explicit*
-HVP on a separate, twice-differentiable loss, while everything that is
-differentiated only ONCE — the inner gradient itself, the query loss and
-its reverse — keeps the fused kernels:
+HVP on a separate, twice-differentiable loss (which may use another but
+mathematically identical formulation, e.g. the wavefront LSTM):
 
   so_impl="hvp"   H·ct by forward-over-reverse:  jvp(grad(L))(p; ct)
   so_impl="rof"   H·ct by reverse-over-forward:  grad(p ↦ jvp(L)(p; ct))
-  so_impl="fhvp"  H·ct by forward-over-reverse where grad(L) itself is the
-                  FUSED-kernel gradient, made forward-differentiable by the
-                  R-operator kernels (train/so_fused.py +
-                  ops/fused_lstm_hvp.py) — nothing in the Hessian
-                  transpose runs the XLA LSTM scan.
 
 "rof" builds the directional derivative s(p) = <∇L(p), ct> as ONE
 hand-rolled forward-tangent pass and reverses through it once — a single
@@ -33,9 +20,8 @@ standard reverse scan over a doubled forward, instead of tangents threaded
 through both the forward and the reverse scans.
 
 All three routes compute the same meta-gradient (float64 equivalence
-asserted in tests/test_maml.py); the perf A/B lives in
-benchmarks/so_impl_probe.py. Reference intent: full MAML
-(/root/reference/README.md:116-124, `higher` in requirements.txt:11).
+asserted in tests/test_maml.py). Reference intent: full MAML
+(the reference's README.md:116-124, `higher` in requirements.txt:11).
 """
 
 from __future__ import annotations
@@ -44,7 +30,7 @@ import numpy as np
 
 import jax
 
-SO_IMPLS = ("xla", "hvp", "rof", "fhvp")
+SO_IMPLS = ("xla", "hvp", "rof")
 
 
 def _zero_ct(x):
@@ -63,23 +49,17 @@ def _zero_ct(x):
     return np.zeros(np.shape(x), jax.dtypes.float0)
 
 
-def make_so_grad(loss_fast, loss_diff2, impl: str, fused_grad_fn=None):
+def make_so_grad(loss_fast, loss_diff2, impl: str):
     """Build the inner-gradient operator g(p, aux, step_rng) = ∇_p loss.
 
-    loss_fast:  loss(p, aux, step_rng) on the fast (fused-kernel) model
-                route — differentiated ONCE to produce g. `aux` is a
+    loss_fast:  loss(p, aux, step_rng) on the model's own route —
+                differentiated ONCE to produce g. `aux` is a
                 pytree of task data passed EXPLICITLY (a custom_vjp must
                 not close over task tensors: under the meta step's task
                 vmap they are batch tracers, and closed-over tracers
                 escaping into the bwd rule is an UnexpectedTracerError).
-    loss_diff2: the same loss on a twice-differentiable (pure-XLA) model
-                route — used only inside the Hessian transpose. For
-                impl="xla" the caller must pass a twice-differentiable
-                loss_fast; loss_diff2 is unused.
-    fused_grad_fn: for impl="fhvp", the forward-differentiable gradient
-                from train/so_fused.py:make_grad_loss_fused — jvp'd
-                directly for the HVP so the Hessian transpose runs the
-                R-operator kernels.
+    loss_diff2: the same loss, possibly on another formulation — used only
+                inside the Hessian transpose. Unused for impl="xla".
     """
     if impl == "xla":
         return jax.grad(loss_fast)
@@ -87,8 +67,6 @@ def make_so_grad(loss_fast, loss_diff2, impl: str, fused_grad_fn=None):
         raise ValueError(
             f"meta.so_impl={impl!r}: expected one of {SO_IMPLS}"
         )
-    if impl == "fhvp" and fused_grad_fn is None:
-        raise ValueError("so_impl='fhvp' requires fused_grad_fn")
 
     @jax.custom_vjp
     def g_op(p, aux, step_rng):
@@ -99,11 +77,7 @@ def make_so_grad(loss_fast, loss_diff2, impl: str, fused_grad_fn=None):
 
     def g_bwd(res, ct):
         p, aux, step_rng = res
-        if impl == "fhvp":
-            _, hv = jax.jvp(
-                lambda q: fused_grad_fn(q, aux, step_rng), (p,), (ct,)
-            )
-        elif impl == "hvp":
+        if impl == "hvp":
             _, hv = jax.jvp(
                 lambda q: jax.grad(loss_diff2)(q, aux, step_rng), (p,), (ct,)
             )

@@ -1,6 +1,6 @@
 """Supervised single-region training — the regional-adaptation engine core.
 
-TPU-native counterpart of the fine-tuning loop in adapt_hybrid_v5.py:182-231:
+JAX counterpart of the fine-tuning loop in adapt_hybrid_v5.py:182-231:
 one jitted train step consumes a *batch* of windows gathered device-side
 (data/windows.py) instead of the reference's host-marshalled batch-size-1
 DataLoader; the climate-aware learning rate enters as a traced scalar so the

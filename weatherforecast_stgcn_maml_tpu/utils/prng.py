@@ -1,13 +1,9 @@
 """Training-path PRNG key construction.
 
-The training engines only consume randomness for dropout masks and sampling
-— yet the default threefry2x32 generator is a real cost on TPU: one inner
-SGD step draws ~50M bernoulli bits across the encoder/LSTM dropout sites,
-and threefry runs on the VPU alongside the model's own elementwise work.
-Switching the TRAINING key to JAX's "rbg" implementation (backed by the
-XLA RngBitGenerator / hardware RNG) measured the clean meta step at
-487 ms vs 561 ms with threefry — a free 13% (round-3 probe, /tmp-recorded,
-summarized in benchmarks/lstm_kernel_probe.md).
+The training engines only consume randomness for dropout masks and sampling,
+but one inner SGD step draws ~50M bernoulli bits across the encoder/LSTM
+dropout sites. The TRAINING key can use JAX's "rbg" implementation (backed
+by XLA's RngBitGenerator) instead of the default threefry2x32 counter hash.
 
 rbg keys are NOT stable across backends/shardings the way threefry is
 (jax.random docs) — fine for dropout, wrong for anything that must
@@ -25,7 +21,7 @@ import jax
 def make_key(seed: int, impl: str | None = None):
     """A typed PRNG key with the configured implementation.
 
-    impl: "rbg" (TPU-fast, default in engine configs), "threefry2x32"
+    impl: "rbg" (XLA RngBitGenerator, default in engine configs), "threefry2x32"
     (JAX's portable default), or None/"default" for the library default.
     """
     if impl in (None, "", "default"):

@@ -1,7 +1,7 @@
 """Export this framework's params back to the reference `.pt` schema.
 
 The inverse of `utils/torch_import.py` (VERDICT r2 missing #2): a model
-meta-trained or adapted on TPU can be handed back to a reference user as a
+meta-trained or adapted here can be handed back to a reference user as a
 checkpoint loadable by their engines (adapt_hybrid_v5.py:84-123,
 validate_hybrid_v5.py:35-110), completing round-trip interop. Written with
 `torch.save` using the exact key layout of train_hybrid_maml_v5.py:311-335
